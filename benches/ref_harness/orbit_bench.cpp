@@ -20,7 +20,7 @@ int main() {
   const int M = 40;    // passes over them
   LifeState boards[B];
   for (int i = 0; i < B; i++)
-    boards[i] = LifeState::RandomState();  // p=0.5 dense, like the TPU bench
+    boards[i] = LifeState::RandomState();  // p=0.5 dense, like bench.py's orbit sweep
 
   // warm pass (also defeats over-clever dead-code elimination)
   uint64_t sink = 0;

@@ -5,8 +5,8 @@ The reference's compound workload (LifeWeld.hpp:247-277, SURVEY.md §3.5):
 for every untested relative placement of catalyst B against catalyst A,
 weld the two and run a bounded still-life completion; provably
 uncompletable placements are marked bad.  This is the closest reference
-analog of the TPU build's native "thousands of candidate boards in one
-batched kernel" workload — and was unmeasured until round 3.
+analog of this library's native "thousands of candidate boards in one
+batched call" workload — and was unmeasured until round 3.
 
 Workload: catalysts WITH stripped stators (weld.from_required on the
 reference LifeWeldTest fixtures) so the CSP actually has to rebuild a
@@ -119,7 +119,7 @@ def run_pair(name, a, b, window, beam_iters_list=(24, 96),
             }), flush=True)
 
 
-def _classify_missed(a, b, missed, batch_tile=128):
+def _classify_missed(a, b, missed):
     """DFS-marked placements the escalated beam did not mark: each is
     either PROVEN WELDABLE (a deep F=8 beam finds a completion — the
     0.05 s DFS budget-refutation was wrong: our complete_stable, like
@@ -137,8 +137,7 @@ def _classify_missed(a, b, missed, batch_tile=128):
     from lifeapi_tpu.stable import complete as C
 
     res = C.complete_stable_beam(sts, frontier=8, iters=768,
-                                 minimise=False, return_boards=False,
-                                 batch_tile=batch_tile)
+                                 minimise=False, return_boards=False)
     found = np.asarray(res.found)[:len(missed)]
     out = {"proved_weldable": int(found.sum()), "sound_missed": 0,
            "unconfirmed": 0}

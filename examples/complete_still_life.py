@@ -6,6 +6,7 @@ import numpy as np
 
 from lifeapi_tpu.core import board, rle
 from lifeapi_tpu.stable import complete, host
+from lifeapi_tpu.utils import compile_cache
 
 
 def main():
@@ -19,4 +20,5 @@ def main():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

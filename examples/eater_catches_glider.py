@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Example: batched catalyst search — find eater placements that consume a
-glider and recover (the classic LifeAPI-style search, batched on TPU)."""
+glider and recover (the classic LifeAPI-style search, batched on the
+device)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,6 +10,7 @@ from lifeapi_tpu import search
 from lifeapi_tpu.core import board, rle
 from lifeapi_tpu.symmetry import transforms as tr
 from lifeapi_tpu.symmetry.transforms import SymmetryTransform as T
+from lifeapi_tpu.utils import compile_cache
 
 
 def main():
@@ -27,4 +29,5 @@ def main():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 from lifeapi_tpu.core import board, rle
 from lifeapi_tpu.mpc import CostWeights, MPCProblem, solver
 from lifeapi_tpu.target import LifeTarget, hamming_cost
+from lifeapi_tpu.utils import compile_cache
 
 
 def main():
@@ -26,4 +27,5 @@ def main():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

@@ -2,11 +2,11 @@
 """Minimal still-life completion of one hard instance, portfolio style.
 
 The reference answers deep single-instance searches with a recursive DFS
-(LifeStable.hpp:1340-1458); the TPU-native answer is a PORTFOLIO: many
+(LifeStable.hpp:1340-1458); the batched answer is a PORTFOLIO: many
 orbit-randomized beam replicas of the same instance in one batched
-kernel, a seeded re-minimise pass, and (optionally) a champion-bounded
+call, a seeded re-minimise pass, and (optionally) a champion-bounded
 host-DFS polish that guarantees the exact minimum — the incumbent bound
-prunes the reference recursion ~2.7x (BENCH_NOTES round 4).
+prunes the reference recursion.
 
 Run from the repo root:  python examples/portfolio_minimise.py
 """
@@ -18,6 +18,7 @@ import numpy as np
 
 from lifeapi_tpu.core import board, rle
 from lifeapi_tpu.stable import complete
+from lifeapi_tpu.utils import compile_cache
 
 
 def main():
@@ -46,4 +47,5 @@ def main():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from lifeapi_tpu import weld as W
 from lifeapi_tpu.core import board, rle
+from lifeapi_tpu.utils import compile_cache
 
 
 def main():
@@ -48,4 +49,5 @@ def main():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

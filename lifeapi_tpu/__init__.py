@@ -1,9 +1,9 @@
-"""lifeapi_tpu — a TPU-native Life search & trajectory-optimization framework.
+"""lifeapi_tpu — a batched Life search & trajectory-optimization framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 scorbiclife/LifeAPI (64x64-torus Life bitboards, pattern matching, symmetry,
-still-life constraint solving) plus a batched MPC engine scaling over TPU
-meshes.  See SURVEY.md for the reference component inventory this
+still-life constraint solving) plus a batched MPC engine scaling over
+device meshes; its hot rollouts are fused CUDA kernels on NVIDIA GPUs.  See SURVEY.md for the reference component inventory this
 implements and README.md for the architecture map.
 """
 

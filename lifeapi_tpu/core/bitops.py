@@ -1,6 +1,6 @@
-"""Word-level bit tricks on 32-bit lanes (TPU has no native 64-bit integers).
+"""Word-level bit tricks on 32-bit words.
 
-TPU-native counterparts of the reference's ``Bits.hpp`` (reference:
+Batched counterparts of the reference's ``Bits.hpp`` (reference:
 Bits.hpp:10-143).  A 64-bit column is represented as a pair of uint32 words
 ``(lo, hi)`` where ``lo`` holds bits y=0..31 and ``hi`` holds bits y=32..63.
 All functions are elementwise over arbitrary leading batch dims and are
@@ -133,7 +133,7 @@ def interleave_split(lo, hi):
 
     In this packing a 64-bit rotate by +-1 costs ONE 32-bit rotate plus a
     free word swap (vs. two funnel shifts), which is what makes the fused
-    step kernel's hot path cheaper (ops/step_pallas.step_eo)."""
+    step kernels' hot path cheaper (ops/step_kernels.cu, core.step.step_eo)."""
     lo = lo.astype(U32)
     hi = hi.astype(U32)
     e = _compress_even(lo) | (_compress_even(hi) << 16)

@@ -1,10 +1,10 @@
-"""Core 64x64 torus bitboard library, TPU-native packed representation.
+"""Core 64x64 torus bitboard library, packed representation.
 
 Counterpart of the reference's ``LifeState`` (reference LifeAPI.hpp:39-1382),
-re-designed for TPU: a board is a ``uint32[..., 64, 2]`` array ("packed"
-layout) — axis -2 is the column x, axis -1 splits the 64-bit column into two
-32-bit words (word 0 = bits y=0..31, word 1 = bits y=32..63), because TPUs
-have no native 64-bit integers.  Cell (x, y) is bit ``y % 32`` of
+re-designed for batched accelerators: a board is a ``uint32[..., 64, 2]``
+array ("packed" layout) — axis -2 is the column x, axis -1 splits the 64-bit
+column into two 32-bit words (word 0 = bits y=0..31, word 1 = bits
+y=32..63), because JAX keeps 64-bit integers off by default.  Cell (x, y) is bit ``y % 32`` of
 ``board[..., x, y // 32]``.
 
 All functions are pure, jit-able, and batched over arbitrary leading dims.
@@ -237,9 +237,8 @@ def move(board, dx, dy):
 
 def _roll_x_dyn(board, dx):
     """Per-board torus roll along x by traced amounts: 6 conditional
-    static rolls (binary decomposition of dx) — a per-lane dynamic
-    sublane permute does not exist on the VPU, but static rolls +
-    selects do."""
+    static rolls (binary decomposition of dx) plus selects, instead of a
+    per-board gather."""
     out = board
     for k in range(6):
         bit = ((dx >> k) & 1).astype(bool)[..., None, None]
@@ -252,7 +251,7 @@ def move_dyn(board, dx, dy):
     broadcasting against the batch): x via conditional static rolls, y
     via the funnel-shift rotate (which broadcasts traced shift amounts).
     A ``vmap`` of :func:`move` over traced offsets lowers to per-board
-    gathers instead and is far slower (BENCH_NOTES round 4)."""
+    gathers instead and is far slower."""
     out = _roll_x_dyn(board, dx)
     lo, hi = out[..., 0], out[..., 1]
     lo, hi = bitops.rotl64(lo, hi, dy[..., None])

@@ -1,6 +1,6 @@
 """Torus convolution, pattern matching and interaction prediction.
 
-TPU-native counterpart of the reference convolution stack (reference
+Batched counterpart of the reference convolution stack (reference
 LifeAPI.hpp:427-444, :1066-1095, :1284-1370).  The reference decomposes the
 source board into bit-runs and ORs rotated copies — a data-dependent scalar
 loop.  Here the same contract (index-sum OR-"convolution": result bit (x, y)
@@ -43,10 +43,8 @@ def _dft_matrix():
 
 
 def _dft2(x_dense):
-    """2D DFT as two complex 64x64 matmuls.  On TPU this rides the MXU and
-    is an order of magnitude faster than XLA's FFT lowering for these tiny
-    transforms (measured: the FFT path benched 6e5 conv/s vs the reference
-    CPU's 1e7/s; the matmul path recovers the gap)."""
+    """2D DFT as two complex 64x64 matmuls at HIGHEST precision (a float32
+    product in TF32 would not be exact)."""
     import jax.lax as lax
 
     w = _dft_matrix()
@@ -74,8 +72,8 @@ _NTT_MATS = None
 def _ntt_matrices():
     """Per-prime forward/inverse NTT matrices as f32 constants (host-built,
     cached).  Entries are integers < 256, so casting to bfloat16 is EXACT —
-    which makes every NTT stage a single-pass bf16 MXU matmul with exact
-    f32 accumulation (products <= 256^2, row sums <= 64*256^2 < 2^24)."""
+    which makes every NTT stage a single-pass bf16 matmul with exact f32
+    accumulation (products <= 256^2, row sums <= 64*256^2 < 2^24)."""
     global _NTT_MATS
     if _NTT_MATS is None:
         import numpy as np
@@ -108,9 +106,8 @@ def _ntt_matrices():
 
 def _mod_p(x, p):
     """Exact mod for integer-valued f32 arrays (values < 2^24).
-    Reciprocal multiply instead of a true divide (the VPU divide is a
-    slow transcendental op): the quotient can be off by at most 1, and
-    the correction selects repair that exactly."""
+    Reciprocal multiply instead of a true divide: the quotient can be off
+    by at most 1, and the correction selects repair that exactly."""
     q = jnp.floor(x * jnp.float32(1.0 / p))
     r = x - q * p
     r = jnp.where(r < 0, r + p, r)
@@ -143,8 +140,8 @@ def _ntt2(x, W, p):
 def _conv_ntt(da, db):
     """Exact integer circular convolution by CRT over two single-pass-bf16
     NTTs.  Unlike the complex-DFT path this needs NO high-precision matmul
-    emulation: all values are small integers at every stage, so the MXU's
-    native bf16 x bf16 -> f32 path is exact end-to-end."""
+    emulation: all values are small integers at every stage, so a bf16 x
+    bf16 -> f32 product is exact end-to-end."""
     p1, p2 = _NTT_PRIMES
     (W1, V1), (W2, V2) = _ntt_matrices()
     outs = []
@@ -160,21 +157,17 @@ def _conv_ntt(da, db):
     return c1 + p1 * t
 
 
-def _prefer_ntt():
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
 def _conv_real(da, db, method=None):
     """Real-valued circular convolution of dense [..., 64, 64] fields.
-    ``method``: "ntt" (two-prime integer transform, the TPU default —
-    bit-exact by construction), "dft" (complex matmul transform), "fft"
-    (jnp.fft, the CPU default), or None for the backend-appropriate one.
+    ``method``: "ntt" (two-prime integer transform, bit-exact by
+    construction), "dft" (complex matmul transform), "fft" (jnp.fft), or
+    None for the platform's default (lifeapi_tpu.platform.CONV_METHOD).
     All are exact for these integer-valued convolutions (counts are
     bounded by 4096; tests/test_convolve.py checks the paths agree)."""
     if method is None:
-        method = "ntt" if _prefer_ntt() else "fft"
+        from .. import platform
+
+        method = platform.CONV_METHOD
     if method == "ntt":
         return _conv_ntt(da.astype(jnp.float32), db.astype(jnp.float32))
     if method == "dft":
@@ -184,65 +177,20 @@ def _conv_real(da, db, method=None):
     return jnp.fft.irfft2(fa * fb, s=(N, N), axes=(-2, -1))
 
 
-def _counts_fused(da, db):
-    """Dispatch to the fused Pallas NTT kernel (ops/conv_pallas): pad the
-    flattened batch to the tile size, run, slice."""
-    from ..ops import conv_pallas as CP
-
-    shape = jnp.broadcast_shapes(da.shape, db.shape)
-    da = jnp.broadcast_to(da, shape).reshape((-1,) + shape[-2:])
-    db = jnp.broadcast_to(db, shape).reshape((-1,) + shape[-2:])
-    B = da.shape[0]
-    # tile 64 is the measured knee for the two-prime kernel: 2.47e6 /
-    # 2.91e6 / 3.35e6 conv/s at nb 16/32/64 (round-4 M-differenced A/B);
-    # nb=128 exceeds scoped VMEM and fails to compile
-    nb = min(64, B)
-    pad = -B % nb
-    if pad:
-        da = jnp.concatenate([da, jnp.zeros((pad,) + shape[-2:], da.dtype)])
-        db = jnp.concatenate([db, jnp.zeros((pad,) + shape[-2:], db.dtype)])
-    out = CP.conv_counts_fused(da, db, nb=nb)
-    return out[:B].reshape(shape)
-
-
 def convolve_counts(a, b, method=None):
     """Circular convolution counts: int32[..., 64, 64] where entry (x, y) is
     the number of pairs of ON cells (p in a, q in b) with p + q == (x, y).
-    On TPU the default is the fused Pallas NTT kernel (bit-exact by
-    construction; see ops/conv_pallas).  ``method="sparse"`` (or a
-    concrete ``b`` with proven population <= 48) takes the bit-sliced
-    peel path — population-proportional, no transform."""
+    ``method="sparse"`` (or a concrete ``b`` with proven population <= 48)
+    takes the bit-sliced peel path — population-proportional, no
+    transform; otherwise a dense transform (see :func:`_conv_real`)."""
     if method == "sparse":
         return convolve_counts_sparse_device(a, b)
     if method is None:
         mp = _max_pop_concrete(b)
         if mp is not None and mp <= _SPARSE_MAX_CELLS:
             return convolve_counts_sparse_device(a, b, max_cells=mp)
-    if method is None and _prefer_ntt():
-        method = "ntt_fused"
-    if method == "ntt_fused":
-        return _counts_fused(to_dense(a), to_dense(b))
     conv = _conv_real(to_dense(a), to_dense(b), method)
     return jnp.round(conv).astype(jnp.int32)
-
-
-def _auto_small(*packed_boards):
-    """True when some CONCRETE (host-known) operand has population < 193
-    on every board — then all convolution counts are < 193 and the
-    single-prime fast path is exact.  Tracers (inside jit) are skipped:
-    the answer must be sound, never guessed."""
-    import jax
-
-    for p in packed_boards:
-        if isinstance(p, jax.core.Tracer):
-            continue
-        try:
-            pops = board_mod.population(p)
-            if int(jnp.max(pops)) < 193:
-                return True
-        except jax.errors.TracerArrayConversionError:
-            continue
-    return False
 
 
 _SPARSE_MAX_CELLS = 48
@@ -270,11 +218,11 @@ def _host_cells(packed):
 
 def convolve_sparse(a, cells):
     """OR-convolution of ``a`` with a host-known cell list: the OR of
-    ``a`` translated by each cell.  This is the TPU analog of the
+    ``a`` translated by each cell.  This is the batched analog of the
     reference's run-decomposition ``Convolve`` (LifeAPI.hpp:1284-1370):
     cost scales with the operand's population, everything stays in the
-    packed uint32 layout (512 B/board, ~20 VPU word-ops per cell — no
-    dense 64x64 materialization, no transform)."""
+    packed uint32 layout (512 B/board, ~20 word-ops per cell — no dense
+    64x64 materialization, no transform)."""
     out = None
     for x, y in cells:
         m = board_mod.move(a, int(x), int(y))
@@ -320,13 +268,13 @@ def convolve_sparse_device(a, b, max_cells=None):
     by the cell's coordinates, OR into the accumulator) until every
     board's operand is exhausted.
 
-    This is the true TPU analog of the reference's run-decomposition
+    This is the batched analog of the reference's run-decomposition
     ``Convolve`` (LifeAPI.hpp:1284-1370): the reference reads runs of the
     operand at RUNTIME and its cost scales with operand population; here
     the extraction is batched across boards and the cost is
-    max-population iterations of ~pure VPU bitops.  Exact for every
+    max-population iterations of pure bitops.  Exact for every
     population (it never truncates), unlike a fixed-K unrolled sparse
-    path; the dense NTT kernels stay the right tool for dense operands
+    path; the dense transforms stay the right tool for dense operands
     (their cost is population-independent)."""
     shape = jnp.broadcast_shapes(a.shape, b.shape)
     a = jnp.broadcast_to(a, shape)
@@ -385,48 +333,31 @@ def convolve_counts_sparse_device(a, b, max_cells=None, n_planes=None):
     a = jnp.broadcast_to(a, shape)
     rem0 = jnp.broadcast_to(b, shape)
 
-    if _prefer_ntt():
-        # fused kernel: the whole peel + ripple-add loop in VMEM
-        from ..ops import conv_sparse_pallas as CSP
+    def body(carry):
+        rem, planes = carry
+        x, y, clear, empty = _extract_first_cell(rem)
+        addend = jnp.where(empty[..., None, None], jnp.uint32(0),
+                           _move_dyn(a, x, y))
+        new_planes = []
+        for p in planes:
+            new_planes.append(p ^ addend)
+            addend = p & addend  # carry
+        return rem & ~clear, tuple(new_planes)
 
-        planes = CSP.counts_sparse_fused(a, rem0, n_planes=n_planes)
+    init = (rem0, tuple(jnp.zeros(shape, jnp.uint32)
+                        for _ in range(n_planes)))
+    if max_cells is not None:
+        _, planes = jax.lax.fori_loop(
+            0, int(max_cells), lambda i, c: body(c), init)
     else:
-        def body(carry):
-            rem, planes = carry
-            x, y, clear, empty = _extract_first_cell(rem)
-            addend = jnp.where(empty[..., None, None], jnp.uint32(0),
-                               _move_dyn(a, x, y))
-            new_planes = []
-            for p in planes:
-                new_planes.append(p ^ addend)
-                addend = p & addend  # carry
-            return rem & ~clear, tuple(new_planes)
+        def cond(carry):
+            return jnp.any(carry[0] != 0)
 
-        init = (rem0, tuple(jnp.zeros(shape, jnp.uint32)
-                            for _ in range(n_planes)))
-        if max_cells is not None:
-            _, planes = jax.lax.fori_loop(
-                0, int(max_cells), lambda i, c: body(c), init)
-        else:
-            def cond(carry):
-                return jnp.any(carry[0] != 0)
-
-            _, planes = jax.lax.while_loop(cond, body, init)
+        _, planes = jax.lax.while_loop(cond, body, init)
     out = jnp.zeros(shape[:-2] + (64, 64), jnp.int32)
     for i, p in enumerate(planes):
         out = out + (to_dense(p).astype(jnp.int32) << i)
     return out
-
-
-def _sparse_device_dispatch(a, b, max_cells=None):
-    """Runtime-sparse OR-convolution: the fused Pallas peel kernel on TPU
-    (ops/conv_sparse_pallas — one dispatch, whole loop in VMEM), the XLA
-    while_loop elsewhere.  Bit-identical (tests/test_convolve.py)."""
-    if _prefer_ntt():
-        from ..ops import conv_sparse_pallas as CSP
-
-        return CSP.convolve_sparse_fused(a, b)
-    return convolve_sparse_device(a, b, max_cells=max_cells)
 
 
 def _max_pop_concrete(packed):
@@ -442,7 +373,7 @@ def _max_pop_concrete(packed):
         return None
 
 
-def convolve(a, b, method=None, small=None):
+def convolve(a, b, method=None):
     """OR-convolution (dilation of a by b), bit-identical to the reference
     ``LifeState::Convolve`` (LifeAPI.hpp:1293-1370).
 
@@ -450,13 +381,7 @@ def convolve(a, b, method=None, small=None):
     constants) with population <= 48, the shift-OR sparse path is taken:
     like the reference's run decomposition it exploits operand sparsity,
     but as packed-word translations instead of scalar runs.  Otherwise
-    the dense paths below apply.
-
-    ``small=True`` asserts every count is < 193 (guaranteed when either
-    operand's population is < 193 — the whole Match/pattern family) and
-    takes the single-prime kernel: half the transform work and a uint8
-    result path.  ``small=None`` auto-enables it only when it can PROVE
-    the bound from a host-known operand."""
+    the dense transform applies (``method`` as in :func:`_conv_real`)."""
     if method is None:
         cells = _host_cells(b)
         if cells is not None and len(cells) <= _SPARSE_MAX_CELLS:
@@ -468,10 +393,10 @@ def convolve(a, b, method=None, small=None):
         # device-side extraction loop, bounded by the proven max pop
         mp = _max_pop_concrete(b)
         if mp is not None and mp <= _SPARSE_MAX_CELLS:
-            return _sparse_device_dispatch(a, b, max_cells=mp)
+            return convolve_sparse_device(a, b, max_cells=mp)
         mp = _max_pop_concrete(a)
         if mp is not None and mp <= _SPARSE_MAX_CELLS:
-            return _sparse_device_dispatch(b, a, max_cells=mp)
+            return convolve_sparse_device(b, a, max_cells=mp)
     if method == "sparse":
         # caller asserts ``b`` is the RUNTIME-SPARSE operand (the
         # traced-operand analog of the reference's
@@ -482,46 +407,15 @@ def convolve(a, b, method=None, small=None):
         mpa, mpb = _max_pop_concrete(a), _max_pop_concrete(b)
         if mpa is not None and mpb is not None and mpa < mpb:
             a, b = b, a  # convolution commutes; peel the sparser side
-        return _sparse_device_dispatch(a, b)
-    if method is None and _prefer_ntt():
-        if small is None:
-            small = _auto_small(a, b)
-        if small:
-            from ..ops import conv_pallas as CP
-
-            shape = jnp.broadcast_shapes(a.shape, b.shape)
-            pa = jnp.broadcast_to(a, shape).reshape((-1, 64, 2))
-            pb = jnp.broadcast_to(b, shape).reshape((-1, 64, 2))
-            # fully-packed kernel: uint32 in/out, no dense
-            # materialization on either side
-            out = CP.conv_small_packed(pa, pb)
-            return out.reshape(shape)
-        method = "ntt_fused"
-    if method == "ntt_fused":
-        return from_dense(_counts_fused(to_dense(a), to_dense(b)) > 0)
+        return convolve_sparse_device(a, b)
     conv = _conv_real(to_dense(a), to_dense(b), method)
     return from_dense(conv > 0.5)
 
 
-def correlate_counts(state, pattern, small=None):
+def correlate_counts(state, pattern):
     """int32[..., 64, 64]: entry (dx, dy) counts ON cells of ``pattern``
     that land on ON cells of ``state`` when moved by (dx, dy).  Equals
-    ``convolve_counts(state, mirrored(pattern))``.  ``small=True``
-    asserts counts < 193 (true when pop(pattern) < 193) and uses the
-    single-prime fast kernel."""
-    if _prefer_ntt():
-        if small is None:
-            small = _auto_small(pattern)
-        if small:
-            from ..ops import conv_pallas as CP
-
-            da = to_dense(state)
-            db = to_dense(mirrored(pattern))
-            shape = jnp.broadcast_shapes(da.shape, db.shape)
-            da = jnp.broadcast_to(da, shape).reshape((-1,) + shape[-2:])
-            db = jnp.broadcast_to(db, shape).reshape((-1,) + shape[-2:])
-            out = CP.conv_small_fused(da, db, out_or=False)
-            return out.reshape(shape)
+    ``convolve_counts(state, mirrored(pattern))``."""
     return convolve_counts(state, mirrored(pattern))
 
 
@@ -539,7 +433,7 @@ def match_sparse(state, cells, invert=False):
     return ~jnp.zeros_like(state) if out is None else out
 
 
-def match_live(state, live, small=None):
+def match_live(state, live):
     """Mask of translations (dx, dy) at which every ON cell of ``live`` is
     ON in ``state`` (reference ``MatchLive``, LifeAPI.hpp:427-430).  With
     a host-known small ``live`` this is a shift-AND over packed words (the
@@ -547,11 +441,11 @@ def match_live(state, live, small=None):
     cells = _host_cells(live)
     if cells is not None and len(cells) <= _SPARSE_MAX_CELLS:
         return match_sparse(state, cells)
-    misses = correlate_counts(~state, live, small=small)
+    misses = correlate_counts(~state, live)
     return from_dense(misses == 0)
 
 
-def match_live_and_dead(state, live, dead, small=None):
+def match_live_and_dead(state, live, dead):
     """Translations at which ``live`` is fully ON and ``dead`` fully OFF in
     ``state`` (reference ``MatchLiveAndDead``, LifeAPI.hpp:432-435)."""
     lcells = _host_cells(live)
@@ -561,8 +455,8 @@ def match_live_and_dead(state, live, dead, small=None):
             and len(dcells) <= _SPARSE_MAX_CELLS):
         return match_sparse(state, lcells) & match_sparse(
             state, dcells, invert=True)
-    misses = correlate_counts(~state, live, small=small)
-    hits = correlate_counts(state, dead, small=small)
+    misses = correlate_counts(~state, live)
+    hits = correlate_counts(state, dead)
     return from_dense((misses == 0) & (hits == 0))
 
 
@@ -588,10 +482,9 @@ def interaction_offsets(a, b, method=None):
     Only the union's SUPPORT matters, so every pair is an OR-convolution
     and the sparse machinery applies (round-5, VERDICT r04 weak #5 /
     directive #7): with concrete sparse operands each pair rides the
-    shift-OR/packed-kernel dispatch in :func:`convolve`;
-    ``method="sparse"`` forces the traced-operand peel path (one fused
-    kernel call over all 7 stacked pairs); otherwise one batched NTT
-    counts transform covers the dense case."""
+    shift-OR dispatch in :func:`convolve`; ``method="sparse"`` forces
+    the traced-operand peel path (one loop over all 7 stacked pairs);
+    otherwise one batched counts transform covers the dense case."""
     from .step import neighbour_counts
 
     def masks(state):
@@ -625,22 +518,19 @@ def interaction_offsets(a, b, method=None):
 def union_interacting(pairs, method=None):
     """OR over (left, right) pairs of their OR-convolutions — the shared
     routing engine of the interaction_offsets family (core and weld
-    variants).  Routes: ``method="sparse"`` -> ONE stacked fused
-    peel-kernel call with per-lane min-side swap; concrete small masks
-    -> per-pair shift-OR convolutions; otherwise one batched NTT counts
-    transform."""
+    variants).  Routes: ``method="sparse"`` -> ONE stacked peel loop
+    with per-lane min-side swap; concrete small masks -> per-pair
+    shift-OR convolutions; otherwise one batched counts transform."""
     import functools as _ft
 
     if method == "sparse":
-        # traced sparse operands: ONE fused peel-kernel call over the
-        # stacked pairs.  The peel loop costs the MAX population over
-        # every lane in the call, and the pairs are lopsided (e.g.
-        # a3&a_state is a subset of the pattern while b_ge1&~b_state is
-        # ~its whole ZOI), so each lane peels its SMALLER side —
-        # convolution commutes, and the runtime swap cuts the peel
-        # count from ~|ZOI| to ~|pattern| (round-5: 1.2e6 -> 2.6e7
-        # queries/s together with the B=1024 batch,
-        # benches/extra.py interaction_offsets).
+        # traced sparse operands: ONE peel loop over the stacked
+        # pairs.  The loop costs the MAX population over every lane in
+        # the call, and the pairs are lopsided (e.g. a3&a_state is a
+        # subset of the pattern while b_ge1&~b_state is ~its whole ZOI),
+        # so each lane peels its SMALLER side — convolution commutes,
+        # and the runtime swap cuts the peel count from ~|ZOI| to
+        # ~|pattern|.
         lefts = jnp.stack([p[0] for p in pairs], axis=0)
         rights = jnp.stack([p[1] for p in pairs], axis=0)
         from .board import population
@@ -648,7 +538,7 @@ def union_interacting(pairs, method=None):
         swap = (population(lefts) < population(rights))[..., None, None]
         peel = jnp.where(swap, lefts, rights)
         other = jnp.where(swap, rights, lefts)
-        conv = _sparse_device_dispatch(other, peel)
+        conv = convolve_sparse_device(other, peel)
         return _ft.reduce(jnp.bitwise_or,
                           [conv[i] for i in range(len(pairs))])
 
@@ -669,7 +559,7 @@ def union_interacting(pairs, method=None):
             out = c if out is None else out | c
         return out
 
-    # dense case: one batched NTT counts transform for all mask pairs
+    # dense case: one batched counts transform for all mask pairs
     lefts = jnp.stack([p[0] for p in pairs], axis=0)
     rights = jnp.stack([p[1] for p in pairs], axis=0)
     counts = convolve_counts(lefts, rights)

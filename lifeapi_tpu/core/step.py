@@ -1,6 +1,6 @@
 """Life stepping and neighbour counting on packed boards.
 
-TPU-native counterpart of the reference's hottest path (reference
+Batched counterpart of the reference's hottest path (reference
 LifeAPI.hpp:822-1064, :1196-1254 and NeighbourCount.hpp).  The same
 carry-save-adder structure is kept so the binary path is bit-exact by
 construction: per-column vertical 3-sums in two bit-planes, then a 1D
@@ -9,10 +9,11 @@ algebraic next-state formula (publicly described in his G4G13 "Life
 Algorithms" paper, cited by the reference at LifeAPI.hpp:835-836).
 
 Everything here operates on packed ``uint32[..., 64, 2]`` boards and is
-batched/jit/vmap friendly.  The Pallas fused kernel in
-:mod:`lifeapi_tpu.ops.step_pallas` is the performance path; this module is
-the portable reference implementation and the building block for
-neighbour-count based analyses.
+batched/jit/vmap friendly.  This module is the portable implementation
+that XLA compiles for any backend, the reference the fused CUDA kernels
+(:mod:`lifeapi_tpu.ops.step_cuda`) are tested against, and the building
+block for neighbour-count based analyses.  :func:`rollout` is the public
+multi-generation entry point and picks the engine per platform.
 """
 
 from __future__ import annotations
@@ -96,6 +97,44 @@ def step_n(board, n, unroll=4):
 
     out, _ = jax.lax.scan(body, board, None, length=n, unroll=unroll)
     return out
+
+
+def rollout(boards, steps, engine=None):
+    """Advance packed boards ``uint32[..., 64, 2]`` by ``steps``
+    generations, bit-exact with :func:`step`.  ``engine`` (see
+    lifeapi_tpu.platform): ``"cuda"`` runs the fused kernel that keeps
+    each board in registers for the whole horizon (ops/step_cuda),
+    ``"xla"`` runs :func:`step_n`, ``None`` picks the platform's engine."""
+    from .. import platform
+
+    if platform.step_engine(engine) == platform.CUDA:
+        from ..ops import step_cuda
+
+        return step_cuda.rollout(boards, steps)
+    return step_n(boards, steps)
+
+
+def step_eo(e, o):
+    """One generation in even/odd packing (core.bitops.interleave_split):
+    ``e``/``o`` are uint32[..., 64] column words holding the even / odd
+    rows.  Same CSA/Rokicki netlist as :func:`step`, but the +-1 row
+    rotate of a 64-bit column is one 32-bit rotate plus a word swap.  The
+    plain-XLA form of the fused kernels' per-generation work."""
+    re = (o << 1) | (o >> 31)  # rows y-1 of the even words
+    rr = (e >> 1) | (e << 31)  # rows y+1 of the odd words
+    x_e, x_o = re ^ o, e ^ rr
+    u_e, u_o = re & o, e & rr
+    c0_e, c0_o = x_e ^ e, x_o ^ o
+    c1_e, c1_o = (x_e & e) | u_e, (x_o & o) | u_o
+
+    def rok(a, s0, s1, c0, c1):
+        u0, u1 = jnp.roll(c0, 1, axis=-1), jnp.roll(c1, 1, axis=-1)
+        b0, b1 = jnp.roll(c0, -1, axis=-1), jnp.roll(c1, -1, axis=-1)
+        ts0 = b0 ^ u0
+        ts1 = (b0 & u0) | (ts0 & s0)
+        return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | a)
+
+    return rok(e, x_e, u_e, c0_e, c1_e), rok(o, x_o, u_o, c0_o, c1_o)
 
 
 def stepped_trajectory(board, n):

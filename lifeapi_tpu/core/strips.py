@@ -1,7 +1,7 @@
 """Strip and patch views: small column windows and square patches packed
 into words (reference LifeStrip.hpp and LifeAPI.hpp:148-207).
 
-On TPU the solver operates whole-board data-parallel, so strips are not a
+Here the solver operates whole-board data-parallel, so strips are not a
 performance feature here (SURVEY.md section 7); these exist for API parity
 and host-side search drivers.
 """

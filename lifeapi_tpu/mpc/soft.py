@@ -3,7 +3,7 @@
 The MPC relaxation from the north star (BASELINE.json): the exact bitboard
 update (B3/S23 over CSA counts) is relaxed to a smooth map on cell
 probabilities so control sequences can be optimized by gradients / SQP,
-while the *hard* binary path (core.step / ops.step_pallas, bit-exact vs the
+while the *hard* binary path (core.step / ops.step_cuda, bit-exact vs the
 reference) re-simulates and scores candidates.
 
 Dynamics: p' = p * survive(count) + (1 - p) * birth(count), where count is

@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from .. import platform
 from ..core import board as B
 from ..target import LifeTarget
 from . import cost as cost_mod
@@ -87,23 +88,23 @@ def hard_score(control_probs, problem: MPCProblem):
     )
 
 
-def hard_score_batch(control_probs, problem: MPCProblem, use_fused=False,
-                     interpret=False):
+def hard_score_batch(control_probs, problem: MPCProblem, use_fused=None):
     """Exact costs of a batch of binarized control candidates
-    [C, T, 64, 64].  ``use_fused=True`` routes through the fused Pallas
-    controlled-rollout kernel (ops/step_pallas.controlled_rollout) — the
-    TPU path for CEM-scale populations."""
+    [C, T, 64, 64].  ``use_fused=True`` routes the rollouts through the
+    fused CUDA controlled-rollout kernel (ops/step_cuda), ``False``
+    through the XLA scan, ``None`` by the platform (lifeapi_tpu.platform);
+    both are bit-exact."""
     mask = problem.control_mask
     toggles = soft_mod.binarize_controls(control_probs * mask)  # [C,T,64,2]
     C = toggles.shape[0]
-    if use_fused:
-        from ..ops import step_pallas
+    engine = None if use_fused is None else (
+        platform.CUDA if use_fused else platform.XLA)
+    if platform.step_engine(engine) == platform.CUDA:
+        from ..ops import step_cuda
 
         boards = jnp.broadcast_to(problem.initial, (C, 64, 2))
         toggles_tb = jnp.swapaxes(toggles, 0, 1)  # [T, C, 64, 2]
-        finals = step_pallas.controlled_rollout(
-            boards, toggles_tb, interpret=interpret
-        )
+        finals = step_cuda.controlled_rollout(boards, toggles_tb)
     else:
         finals = jax.vmap(
             lambda t: soft_mod.hard_rollout(problem.initial, t)
@@ -222,7 +223,7 @@ def solve(problem: MPCProblem, key, n_candidates=32, method="gradient",
 
 
 def solve_cem(problem: MPCProblem, key, pop=256, iters=20, elites=16,
-              init_p=0.03, smoothing=0.7, mean0=None, use_fused=False):
+              init_p=0.03, smoothing=0.7, mean0=None, use_fused=None):
     """Cross-entropy method on the exact path: sample toggle masks, score
     with the bit-exact rollout, refit toggle probabilities to the elite
     set.  ``mean0`` seeds the sampling distribution (e.g. from a gradient

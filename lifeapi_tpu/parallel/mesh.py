@@ -39,7 +39,7 @@ def make_mesh(n_scenario=None, n_candidate=None, devices=None):
 
 def initialize_distributed(coordinator=None, num_processes=None, process_id=None):
     """Multi-host bring-up (reference has no distributed layer; this is the
-    TPU-native runtime entry, jax.distributed over DCN)."""
+    runtime entry, jax.distributed across hosts)."""
     kwargs = {}
     if coordinator is not None:
         kwargs = dict(

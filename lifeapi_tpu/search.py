@@ -15,6 +15,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from . import platform
 from .core import board as B
 from .core import convolve as conv
 from .core import step as S
@@ -43,41 +44,8 @@ def candidate_offsets(active, catalyst, search_area=None):
     return jnp.asarray(np.asarray(cells, dtype=np.int32).reshape(-1, 2))
 
 
-def _catalyst_fused(boards, placed, placed_zoi, base_traj, interpret):
-    """Fused-kernel rollout + interaction detection: the placed boards
-    ride the even/odd Pallas rollout (ops/step_pallas) with the
-    lane-broadcast baseline trajectory compared in-kernel each
-    generation.  Returns (final packed [P, 64, 2], interacted bool[P])."""
-    from .core import bitops
-    from .ops import step_pallas as K
-
-    P = boards.shape[0]
-    pad = -P % 128
-
-    def eo(pk):
-        if pad:
-            pk = jnp.concatenate(
-                [pk, jnp.zeros((pad, 64, 2), jnp.uint32)])
-        lo, hi = K.to_kernel_layout(pk)
-        return bitops.interleave_split(lo, hi)
-
-    e, o = eo(boards)
-    pe, po = eo(placed)
-    ze, zo = eo(placed_zoi)
-    be, bo = bitops.interleave_split(
-        base_traj[..., 0][:, :, None], base_traj[..., 1][:, :, None]
-    )
-    fe, fo, ae, ao = K.catalyst_rollout_eo(
-        be, bo, e, o, pe, po, ze, zo, interpret=interpret
-    )
-    lo, hi = bitops.interleave_merge(fe, fo)
-    final = K.from_kernel_layout(lo, hi)[:P]
-    interacted = jnp.any((ae | ao) != 0, axis=0)[:P]
-    return final, interacted
-
-
 def catalyst_search(active, catalyst, offsets, horizon, recovery_target=None,
-                    batch=None, engine=None, interpret=False):
+                    batch=None, engine=None):
     """Try every placement: roll the union forward, require the catalyst to
     interact within the horizon and be recovered at the end.
 
@@ -85,10 +53,11 @@ def catalyst_search(active, catalyst, offsets, horizon, recovery_target=None,
     offsets: int32[P, 2].  Returns a PlacementResult.  Fully batched and
     jit friendly.
 
-    ``engine="fused"`` (auto on TPU) runs the whole horizon in ONE Pallas
-    kernel — boards stay in VMEM across generations instead of
-    round-tripping HBM per scan step; ``engine="xla"`` is the portable
-    scan path.  Both are bit-exact (tests/test_search.py)."""
+    ``engine`` (see lifeapi_tpu.platform): ``"cuda"`` runs the whole
+    horizon in one fused kernel (ops/step_cuda.catalyst_rollout), boards
+    in registers across generations; ``"xla"`` is the portable scan;
+    ``None`` picks the platform's engine.  Both are bit-exact
+    (tests/test_search.py)."""
     if recovery_target is None:
         recovery_target = LifeTarget.from_state(catalyst)
 
@@ -113,18 +82,11 @@ def catalyst_search(active, catalyst, offsets, horizon, recovery_target=None,
     # — step it ONCE per generation (not per placement)
     placed_zoi = B.zoi(placed)
 
-    if engine is None:
-        engine = "fused" if jax.default_backend() == "tpu" else "xla"
+    if platform.step_engine(engine) == platform.CUDA:
+        from .ops import step_cuda
 
-    if engine == "fused":
-        def bstep(c, _):
-            n = S.step(c)
-            return n, n
-
-        base_final, base_traj = jax.lax.scan(
-            bstep, active, None, length=horizon)
-        final, interacted = _catalyst_fused(
-            boards, placed, placed_zoi, base_traj, interpret)
+        final, interacted, base_final = step_cuda.catalyst_rollout(
+            boards, active, placed, placed_zoi, horizon)
     else:
         def body(carry, _):
             cur, baseline, interacted = carry

@@ -154,7 +154,7 @@ class LifeStable:
 
     def complete_stable_beam(self, frontier=8, iters=192, minimise=True,
                              seed=None):
-        """Batched TPU beam completion; data must have a leading batch.
+        """Batched beam completion; data must have a leading batch.
         ``seed`` (packed) enables reference useSeed proximity branching."""
         return C.complete_stable_beam(
             self.data, frontier=frontier, iters=iters, minimise=minimise,

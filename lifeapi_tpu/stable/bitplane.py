@@ -249,7 +249,7 @@ def synchronise_state_known(bst: BitStable):
 def update_circuit(state, unknown, ruled, on9, unk9):
     """Pure elementwise part of UpdateOptions: returns (new_ruled tuple,
     abort_cells plane, changes plane).  Counts are injected so this runs
-    identically on packed boards and on kernel-layout half-planes."""
+    identically on any elementwise-compatible plane layout."""
     A = nb.sub_bit(on9, state)
     Un = nb.sub_bit(unk9, unknown)
     AU = nb.add(A, Un)
@@ -258,7 +258,7 @@ def update_circuit(state, unknown, ruled, on9, unk9):
 
 def update_circuit_interval(state, unknown, ruled, A, AU):
     """``update_circuit`` with the exclusive neighbour interval [A, AU]
-    precomputed (shared with signal_circuit_post in fused steps)."""
+    precomputed (shared with signal_circuit_post in propagate steps)."""
     center_on = state
     known_off = ~state & ~unknown
 
@@ -350,8 +350,8 @@ def signal_circuit_post(state, unknown, ruled, A, U, AU):
     ``_maximal_ruled_planes`` is redundant, and the exclusive interval
     [A, AU] can be shared with the update.  Equal to ``signal_circuit`` on
     all cells of consistent boards (aborting cells differ only on boards
-    the propagate contract leaves unspecified); exercised by the fused
-    step equivalence tests (tests/test_stable_pallas.py).  Saves one
+    the propagate contract leaves unspecified); exercised by the
+    propagate equivalence tests (tests/test_bitplane.py).  Saves one
     9-count, one maximal-planes evaluation and one min/max scan per step
     vs the reference structure (LifeStable.hpp:617-675)."""
     center_on = state
@@ -874,8 +874,8 @@ def vulnerable_circuit(state, unknown, ruled, on9, unk9):
     """Elementwise core of the ``Vulnerable`` heuristic: per-cell signal
     masks ``(v_on, v_off, vc_on, vc_off)`` from the inclusive 9-counts.
     The caller broadcasts ``v_on``/``v_off`` with a hollow ZOI (the only
-    cross-cell step) and combines — kept separate so the fused Pallas
-    kernel can evaluate it on VMEM-resident planes."""
+    cross-cell step) and combines — kept separate so the elementwise
+    part stays one fusible function."""
     center_on = state
     center_unk = unknown
     known_off = ~state & ~unknown

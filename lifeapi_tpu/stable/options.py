@@ -9,9 +9,9 @@ convention (LifeStable.hpp:44-53).
 
 The reference compiles per-cell propagation rules to espresso-minimized
 boolean netlists executed bit-sliced over 64-bit words
-(bitslicing/common.py + stable_*.py generators).  On TPU, cell domains live
+(bitslicing/common.py + stable_*.py generators).  Here, cell domains live
 densely (uint8 per cell) and the same rule functions become small lookup
-tables evaluated by vectorized gathers on the VPU — this module derives
+tables evaluated by vectorized gathers — this module derives
 those tables directly from the semantics (interval reasoning over unknown
 neighbour counts), not from the committed netlists.  Each table is
 exhaustively checked against an independent brute-force enumeration in

@@ -1,8 +1,8 @@
 """Closed-form vectorized stable-propagation rules.
 
-The LUT path (options.py + gathers) is exact but per-cell table gathers
-lower poorly on TPU; these are the same interval-reasoning rules computed
-directly with elementwise arithmetic on the VPU — no gathers, no tables.
+The LUT path (options.py + gathers) is exact but needs per-cell table
+gathers; these are the same interval-reasoning rules computed directly
+with elementwise arithmetic — no gathers, no tables.
 Each function is verified against the scalar rule functions of options.py
 over the full input grid (tests/test_rules_vec.py).
 

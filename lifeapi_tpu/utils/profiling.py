@@ -11,7 +11,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(dirname="/tmp/lifeapi_tpu_trace"):
+def trace(dirname):
     """Capture a jax.profiler trace viewable in TensorBoard/Perfetto."""
     jax.profiler.start_trace(dirname)
     try:

@@ -1,33 +1,11 @@
-"""Per-kernel roofline accounting (SURVEY.md §5.1 promise; round-2
-VERDICT missing #3).
+"""Operation counts for roofline accounting (SURVEY.md §5.1).
 
-The hot kernels here are integer/boolean VPU code — the roofline that
-matters is *vector lane-ops per second* against the VPU's issue-rate
-ceiling, not FLOPs against the MXU.  This module counts the lane-ops of a
-kernel body mechanically from its jaxpr (so the counts track the code),
-and benches divide measured throughput by the documented peak to report a
-``% of VPU peak`` column (BENCH_NOTES.md).
-
-Peak model (documented so the number is auditable):
-
-  TPU v5e, one TensorCore: the VPU is an (8 sublane x 128 lane) vector
-  unit with 4 independent ALU slots per lane-position at ~0.94 GHz
-  (public "How to Scale Your Model" figures), i.e.
-
-      peak = 8 * 128 * 4 * 0.94e9 ~= 3.85e12 uint32 lane-ops/s.
-
-  This is the *issue-rate* ceiling for elementwise int ops, assuming
-  perfect 4-way slot packing; shifts/selects/shuffles occupy the same
-  slots, and not every op mix reaches 4-way issue, so sustained fractions
-  above ~50% are excellent and >80% is effectively speed-of-light.
-
-  Round 5: the model is superseded for utilization quotes by the
-  MEASURED ceiling of ops/calibrate_pallas.py — a known-op-count kernel
-  in the bit-kernel mix sustains ~5.9e12 (elemwise) / 4.9e12 (+rolls)
-  lane-ops/s at lane tile 128, falling to ~3.1e12 at tile 512, i.e. the
-  model UNDERSTATES small-tile hardware by ~1.5x and the ceiling is
-  tile-dependent.  BENCH_NOTES quotes calibrated utilization (measured
-  lane-ops/s over the rolls-mix ceiling at the kernel's own tile).
+The hot paths here are integer/boolean bit logic, so the roofline that
+matters is 32-bit *lane-ops per second* against the device's integer-ALU
+issue rate, not FLOPs.  This module counts the lane-ops of a function
+body mechanically from its jaxpr, so the counts track the code.  It knows
+no device: a benchmark divides a measured rate by a peak it states with
+its source (:func:`pct_of_peak` takes the peak as an argument).
 
 CPU baseline model (for the host-oracle comparisons): one Xeon core at
 2.1 GHz executing ~3 scalar 64-bit ALU ops/cycle ~= 6.3e9 word-ops/s;
@@ -38,8 +16,6 @@ from __future__ import annotations
 
 import jax
 import numpy as np
-
-V5E_VPU_PEAK_LANE_OPS = 8 * 128 * 4 * 0.94e9  # ~3.85e12 uint32 lane-ops/s
 
 # primitives that are pure data-plumbing in a fused kernel: either
 # compiled away entirely or not representative of ALU pressure
@@ -74,24 +50,19 @@ def _count_jaxpr(jaxpr):
 def lane_ops(fn, *example_args):
     """Count vector lane-ops of one evaluation of ``fn`` (a loop BODY —
     no data-dependent control flow) by tracing its jaxpr.  Every counted
-    primitive contributes its output element count; shuffles (concatenate
-    for sublane rolls) count as one op per element, matching how they
-    occupy VPU issue slots.
+    primitive contributes its output element count; data movement
+    (concatenate for column rolls) counts as one op per element.
 
-    CAVEAT (measured round 3): these are PRE-compiler counts — an UPPER
-    bound on executed ops.  Mosaic/XLA CSE already eliminates repeated
-    subexpressions: a source-level rewrite that removed 27% of the
-    jaxpr ops of the propagate step changed its measured wall-clock by
-    <2%, i.e. the compiler had already deduplicated them.  `% of peak`
-    derived from these counts therefore UNDERSTATES true utilization of
-    circuits with heavy shared subexpressions (the fixpoint's real
-    fraction is higher than the quoted ~44%); the step kernel's count
-    has no such redundancy and its ~110% reading stands."""
+    These are PRE-compiler counts — an UPPER bound on executed ops: the
+    compiler eliminates repeated subexpressions, so circuits with shared
+    subexpressions execute fewer (see :func:`lane_ops_cse`)."""
     jaxpr = jax.make_jaxpr(fn)(*example_args)
     return _count_jaxpr(jaxpr.jaxpr)
 
 
-def pct_of_peak(achieved_lane_ops_per_s, peak=V5E_VPU_PEAK_LANE_OPS):
+def pct_of_peak(achieved_lane_ops_per_s, peak):
+    """Percent of ``peak`` lane-ops/s; the caller names the device's peak
+    and its source."""
     return 100.0 * achieved_lane_ops_per_s / peak
 
 
@@ -113,9 +84,8 @@ def _cse_count_jaxpr(jaxpr):
     elimination on the jaxpr: two eqns with the same primitive, params and
     (operand-order-normalized, for commutative prims) inputs count ONCE,
     and eqns whose results never reach an output count ZERO.  This is the
-    dedup XLA/Mosaic provably performs (a 31% pre-CSE source reduction
-    moved wall-clock <2%, BENCH_NOTES), so these counts are the honest
-    numerator for ``% of peak``.  Remaining slack vs the true executed
+    dedup a compiler performs, so these counts are the honest numerator
+    for ``% of peak``.  Remaining slack vs the true executed
     count: algebraic rewrites beyond CSE, and cross-``pjit``-boundary
     sharing (not attempted — sub-jaxprs are counted independently)."""
     vn = {}          # var -> value number
@@ -206,9 +176,9 @@ def compiled_cost_analysis(fn, *example_args):
     """XLA's own cost model for the COMPILED artifact
     (``jit(fn).lower(...).compile().cost_analysis()``) — flops /
     transcendentals / bytes accessed.  For Pallas kernels the custom
-    call is opaque to XLA's analysis (counts ~0), so this is only
-    meaningful for jnp-path pipelines; the Pallas kernels use
-    :func:`lane_ops_cse` instead."""
+    call of a hand-written kernel is opaque to XLA's analysis (counts
+    ~0), so this is only meaningful for jnp-path pipelines; the kernels
+    use :func:`lane_ops_cse` of their jnp reference instead."""
     compiled = jax.jit(fn).lower(*example_args).compile()
     try:
         return compiled.cost_analysis()
@@ -216,12 +186,9 @@ def compiled_cost_analysis(fn, *example_args):
         return None
 
 
-V5E_MXU_PEAK_BF16_FLOPS = 197e12  # public v5e figure, bf16
-
-
 def matmul_flops(fn, *example_args):
     """Total dot_general FLOPs (2*M*N*K) of one evaluation of ``fn`` —
-    the MXU-side roofline numerator for the NTT convolution kernels."""
+    the matrix-unit roofline numerator for the NTT convolution."""
 
     def walk(jaxpr):
         total = 0
@@ -250,56 +217,32 @@ def matmul_flops(fn, *example_args):
 
 
 def step_lane_ops_per_board(post_cse=False):
-    """Lane-ops per board per generation of the fused even/odd step
-    (ops/step_pallas.step_eo): each op processes the board's 64 uint32
-    column half-words per array.  ``post_cse`` counts after
-    value-numbering CSE + DCE (identical here: the CSA step has no
-    redundant subexpressions — measured 3328 both ways)."""
+    """Lane-ops per board per generation of the even/odd step
+    (core.step.step_eo, the per-generation work of the fused CUDA
+    kernels): each op processes the board's 64 uint32 column half-words
+    per array.  ``post_cse`` counts after value-numbering CSE + DCE
+    (identical here: the CSA step has no redundant subexpressions)."""
     import jax.numpy as jnp
 
-    from ..ops import step_pallas
+    from ..core import step as S
 
-    B = 8  # lane count cancels: we count per-board
-    e = jnp.zeros((64, B), jnp.uint32)
+    B = 8  # batch cancels: we count per board
+    e = jnp.zeros((B, 64), jnp.uint32)
     count = lane_ops_cse if post_cse else lane_ops
-    ops = count(lambda a, b: step_pallas.step_eo(a, b), e, e)
-    return ops // B
+    return count(S.step_eo, e, e) // B
 
 
 def fixpoint_step_lane_ops_per_board(post_cse=False):
-    """Lane-ops per board per full propagate step (sync+update+signal,
-    ops/stable_pallas._step_planes on 20 half-planes).  ``post_cse``
-    gives the executed-op estimate (the shared-threshold circuits carry
-    ~25% CSE-able redundancy at source level)."""
+    """Lane-ops per board per full propagate step
+    (stable.bitplane.propagate_step: sync + update + signal on packed
+    planes).  ``post_cse`` gives the executed-op estimate (the
+    shared-threshold circuits carry CSE-able redundancy at source
+    level)."""
     import jax.numpy as jnp
 
-    from ..ops import stable_pallas
-
-    B = 8
-    planes = tuple(jnp.zeros((64, B), jnp.uint32) for _ in range(20))
-    count = lane_ops_cse if post_cse else lane_ops
-    ops = count(lambda *p: stable_pallas._step_planes(p)[0], *planes)
-    return ops // B
-
-
-def simple_step_lane_ops_per_board(post_cse=False):
-    """Lane-ops per board per cheap simple-rule iteration
-    (ops/stable_pallas._simple_quiescence body: 2 counts + circuit)."""
-    import jax.numpy as jnp
-
-    from ..ops import stable_pallas
     from ..stable import bitplane as BP
 
     B = 8
-    z = jnp.zeros((64, B), jnp.uint32)
-
-    def body(sl, sh, ul, uh):
-        on9 = stable_pallas._count9(sl, sh)
-        unk9 = stable_pallas._count9(ul, uh)
-        outs = []
-        for k, (s, u) in enumerate(((sl, ul), (sh, uh))):
-            outs.extend(BP.simple_circuit(s, u, on9[k], unk9[k]))
-        return outs
-
+    z = jnp.zeros((B, 64, 2), jnp.uint32)
     count = lane_ops_cse if post_cse else lane_ops
-    return count(body, z, z, z, z) // B
+    return count(BP.propagate_step, BP.make(state=z, unknown=z)) // B

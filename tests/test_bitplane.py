@@ -178,7 +178,7 @@ def test_gt_thresholds7_exhaustive():
 
 def test_signal_post_exhaustive_vs_signal_circuit():
     """Exhaustive (center three-state x A x U x ruled-mask) equivalence of
-    signal_circuit_post (the fused-kernel specialisation) vs the untouched
+    signal_circuit_post (the post-update specialisation) vs the untouched
     signal_circuit, on post-update ruled planes.  Random boards with
     all-zero initial ruled planes cannot reach the constrained-options
     corners (e.g. a dead6-only cell with AU > 6, which a dropped c=6 term

@@ -162,7 +162,7 @@ def test_components_vertically_separated():
 
 
 def test_dft_matches_fft_paths(rng):
-    """The matmul-DFT transform (TPU path) and jnp.fft (CPU path) must
+    """The matmul-DFT transform and jnp.fft (the default path) must
     produce identical integer counts, including the worst-case magnitudes
     (dense p=0.5 boards and the all-ones board where the spectral DC term
     reaches 4096^2)."""
@@ -184,7 +184,7 @@ def test_dft_matches_fft_paths(rng):
 
 
 def test_ntt_matches_brute_force(rng):
-    """The two-prime NTT path (the TPU default) is bit-exact BY
+    """The two-prime NTT path is bit-exact BY
     CONSTRUCTION (single-pass bf16 matmuls over integers <= 256 with f32
     accumulation never exceed 2^24); verify against a brute-force numpy
     convolution and the fft path, including the all-ones worst case
@@ -213,88 +213,57 @@ def test_ntt_matches_brute_force(rng):
         assert (or_ntt == np.asarray(convolve.convolve(a, b, method="fft"))).all()
 
 
-def test_fused_ntt_kernel_matches(rng):
-    """The fused Pallas NTT kernel (the actual TPU dispatch path) in
-    interpreter mode vs the fft path, odd batch + padding path + the
-    all-ones worst case."""
-    from lifeapi_tpu.ops import conv_pallas as CP
-
+def test_ntt_odd_batch_and_worst_case(rng):
+    """The two-prime NTT counts (exact by construction) on odd batches
+    and the all-ones worst case (every count 4096), against the FFT."""
     for p, B in ((0.1, 3), (0.5, 5)):
-        da = random_dense(rng, p=p, batch=(B,))
-        db = random_dense(rng, p=p, batch=(B,))
-        a = board.from_dense(jnp.asarray(da))
-        b = board.from_dense(jnp.asarray(db))
-        got = np.asarray(CP.conv_counts_fused(
-            jnp.asarray(da), jnp.asarray(db), nb=B, interpret=True))
+        a = board.from_dense(jnp.asarray(random_dense(rng, p=p, batch=(B,))))
+        b = board.from_dense(jnp.asarray(random_dense(rng, p=p, batch=(B,))))
+        got = np.asarray(convolve.convolve_counts(a, b, method="ntt"))
         exp = np.asarray(convolve.convolve_counts(a, b, method="fft"))
         assert (got == exp).all()
-    ones = jnp.ones((2, 64, 64), bool)
-    got = np.asarray(CP.conv_counts_fused(ones, ones, nb=2, interpret=True))
+    ones = board.from_dense(jnp.ones((2, 64, 64), bool))
+    got = np.asarray(convolve.convolve_counts(ones, ones, method="ntt"))
     assert (got == 4096).all()
 
 
-def test_small_fused_kernel_matches(rng):
-    """Single-prime board-paired kernel (pattern-family fast path) in
-    interpreter mode: exact counts and OR when counts < 193, odd batch
-    padding path included."""
-    from lifeapi_tpu.ops import conv_pallas as CP
+def test_counts_small_operands_all_methods(rng):
+    """Pattern-family operands (populations far below 193): counts and OR
+    agree across the fft, ntt and dft transforms and a brute-force count,
+    odd batch included."""
+    def brute(da, db):
+        out = np.zeros((64, 64), np.int64)
+        for x, y in zip(*np.nonzero(da)):
+            out += np.roll(np.roll(db, x, axis=0), y, axis=1)
+        return out
 
     for B in (3, 4):
-        da = random_dense(rng, p=0.04, batch=(B,))  # pops << 193
+        da = random_dense(rng, p=0.04, batch=(B,))
         db = random_dense(rng, p=0.04, batch=(B,))
         a = board.from_dense(jnp.asarray(da))
         b = board.from_dense(jnp.asarray(db))
-        exp = np.asarray(convolve.convolve_counts(a, b, method="fft"))
-        got = np.asarray(CP.conv_small_fused(
-            jnp.asarray(da), jnp.asarray(db), nb=2, out_or=False,
-            interpret=True))
-        assert (got == exp).all()
-        got_or = np.asarray(CP.conv_small_fused(
-            jnp.asarray(da), jnp.asarray(db), nb=2, out_or=True,
-            interpret=True))
-        assert (got_or != 0).tolist() == (exp > 0).tolist()
+        exp = np.stack([brute(da[i], db[i]) for i in range(B)])
+        for method in ("fft", "ntt", "dft"):
+            got = np.asarray(convolve.convolve_counts(a, b, method=method))
+            assert (got == exp).all(), method
+            got_or = np.asarray(board.to_dense(
+                convolve.convolve(a, b, method=method)))
+            assert (got_or == (exp > 0)).all(), method
 
 
-def test_small_packed_kernel_matches(rng):
-    """Fully-packed kernel (uint32 in/out, in-kernel bit expansion +
-    byte-matmul packing) in interpreter mode: bit-identical OR result,
-    odd-batch padding path included."""
-    from lifeapi_tpu.ops import conv_pallas as CP
-
-    for B in (2, 3, 6):
-        a = board.from_dense(jnp.asarray(random_dense(rng, p=0.03, batch=(B,))))
-        b = board.from_dense(jnp.asarray(random_dense(rng, p=0.03, batch=(B,))))
-        exp = convolve.convolve(a, b, method="fft")
-        got = CP.conv_small_packed(a, b, interpret=True)
-        assert bool(jnp.all(got == exp))
-    # wrap-heavy edge cells
+def test_convolve_wrap_heavy_cells():
+    """OR-convolution of torus-edge cells wraps identically on every
+    dense transform (odd and even batches)."""
     a = jnp.stack([board.from_cells([(63, 63), (0, 0), (31, 32)]),
                    board.from_cells([(1, 2)])])
     b = jnp.stack([board.from_cells([(63, 1)]),
                    board.from_cells([(2, 63), (33, 31)])])
-    assert bool(jnp.all(CP.conv_small_packed(a, b, interpret=True)
-                        == convolve.convolve(a, b, method="fft")))
-
-
-def test_auto_small_detection():
-    """_auto_small: proves the bound from host-known operands only."""
-    import jax
-
-    sparse = board.from_cells([(1, 1), (2, 2)])
-    dense_b = board.from_dense(jnp.ones((64, 64), bool))
-    assert convolve._auto_small(sparse)
-    assert convolve._auto_small(dense_b, sparse)  # either operand suffices
-    assert not convolve._auto_small(dense_b)
-
-    hit_inside = []
-
-    @jax.jit
-    def f(x):
-        hit_inside.append(convolve._auto_small(x))
-        return x
-
-    f(sparse)
-    assert hit_inside == [False]  # tracers are never guessed small
+    want = [{(62, 0), (63, 1), (30, 33)}, {(3, 1), (34, 33)}]
+    for method in ("fft", "ntt", "dft"):
+        got = convolve.convolve(a, b, method=method)
+        for i in range(2):
+            cells = {tuple(map(int, c)) for c in board.on_cells(got[i])}
+            assert cells == want[i], (method, i)
 
 
 def test_convolve_sparse_device_matches_fft(rng):
@@ -323,13 +292,10 @@ def test_convolve_sparse_device_matches_fft(rng):
     assert (np.asarray(convolve.convolve(a, b)) == ref).all()
 
 
-def test_convolve_sparse_fused_kernel(rng):
-    """The fused Pallas peel kernel (ops/conv_sparse_pallas, interpret
-    mode) must be bit-identical to the XLA extraction loop for random
-    per-board sparse operands, empty operands, a dense lane, and
+def test_convolve_sparse_device_edge_cases(rng):
+    """The XLA peel loop (convolve_sparse_device) equals the FFT OR for
+    random per-board sparse operands, empty operands, a dense lane, and
     unbatched broadcast shapes."""
-    from lifeapi_tpu.ops import conv_sparse_pallas as CSP
-
     B = 12
     da = rng.random((B, 64, 64)) < 0.1
     db = np.zeros((B, 64, 64), bool)
@@ -340,18 +306,17 @@ def test_convolve_sparse_fused_kernel(rng):
     db[3][:] = True  # one dense lane: loop must still terminate exactly
     a = board.from_dense(jnp.asarray(da))
     b = board.from_dense(jnp.asarray(db))
-    ref = np.asarray(convolve.convolve_sparse_device(a, b))
-    got = np.asarray(CSP.convolve_sparse_fused(a, b, interpret=True))
+    ref = np.asarray(convolve.convolve(a, b, method="fft"))
+    got = np.asarray(convolve.convolve_sparse_device(a, b))
     assert (got == ref).all()
 
     empty = jnp.zeros((B, 64, 2), jnp.uint32)
-    assert (np.asarray(
-        CSP.convolve_sparse_fused(a, empty, interpret=True)) == 0).all()
+    assert (np.asarray(convolve.convolve_sparse_device(a, empty)) == 0).all()
 
     a1 = board.from_dense(jnp.asarray(rng.random((64, 64)) < 0.1))
     b1 = board.from_cells([(3, 5), (60, 62), (0, 0), (63, 31), (31, 63)])
-    r1 = np.asarray(convolve.convolve_sparse_device(a1, b1))
-    o1 = np.asarray(CSP.convolve_sparse_fused(a1, b1, interpret=True))
+    r1 = np.asarray(convolve.convolve(a1, b1, method="fft"))
+    o1 = np.asarray(convolve.convolve_sparse_device(a1, b1))
     assert (o1 == r1).all()
 
 
@@ -418,12 +383,9 @@ def test_interaction_offsets_routes_agree(rng):
     assert (dense_b == sp_b).all()
 
 
-def test_counts_sparse_fused_kernel(rng):
-    """The fused bit-sliced counts kernel (interpret mode) must equal
-    the FFT counts for random sparse operands, and the jnp ripple-add
-    path must agree with both."""
-    from lifeapi_tpu.ops import conv_sparse_pallas as CSP
-
+def test_counts_sparse_device_planes(rng):
+    """The bit-sliced ripple-add counts equal the FFT counts for random
+    sparse operands, with the minimal plane width for a proven bound."""
     B = 6
     da = rng.random((B, 64, 64)) < 0.15
     db = np.zeros((B, 64, 64), bool)
@@ -434,13 +396,10 @@ def test_counts_sparse_fused_kernel(rng):
     a = board.from_dense(jnp.asarray(da))
     b = board.from_dense(jnp.asarray(db))
     ref = np.asarray(convolve.convolve_counts(a, b, method="fft"))
-    planes = CSP.counts_sparse_fused(a, b, interpret=True)
-    out = np.zeros((B, 64, 64), np.int64)
-    for i, p in enumerate(planes):
-        out += np.asarray(board.to_dense(p)).astype(np.int64) << i
-    assert (out == ref).all()
-    jnp_path = np.asarray(convolve.convolve_counts_sparse_device(a, b))
-    assert (jnp_path == ref).all()
+    assert (np.asarray(convolve.convolve_counts_sparse_device(a, b))
+            == ref).all()
+    bounded = convolve.convolve_counts_sparse_device(a, b, max_cells=11)
+    assert (np.asarray(bounded) == ref).all()
 
 
 def test_counts_sparse_dense_operand_exact(rng):
@@ -459,11 +418,8 @@ def test_counts_sparse_dense_operand_exact(rng):
 
 
 def test_conv_sparse_fused_param_variants(rng):
-    """unroll and n_planes parameter variants stay bit-identical to the
-    defaults (unrolling only changes scheduling; wider counters only
-    change headroom)."""
-    from lifeapi_tpu.ops import conv_sparse_pallas as CSP
-
+    """n_planes variants stay bit-identical to the FFT counts (wider
+    counters only change headroom)."""
     B = 5
     da = rng.random((B, 64, 64)) < 0.1
     db = np.zeros((B, 64, 64), bool)
@@ -471,11 +427,6 @@ def test_conv_sparse_fused_param_variants(rng):
         db[i, rng.integers(0, 64, 7), rng.integers(0, 64, 7)] = True
     a = board.from_dense(jnp.asarray(da))
     b = board.from_dense(jnp.asarray(db))
-    ref = np.asarray(CSP.convolve_sparse_fused(a, b, interpret=True))
-    for unroll in (2, 4):
-        got = np.asarray(CSP.convolve_sparse_fused(
-            a, b, interpret=True, unroll=unroll))
-        assert (got == ref).all(), unroll
     cref = np.asarray(convolve.convolve_counts(a, b, method="fft"))
     for n_planes in (3, 6, 13):
         got = np.asarray(convolve.convolve_counts_sparse_device(

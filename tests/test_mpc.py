@@ -1,6 +1,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from lifeapi_tpu.core import board, rle, step
 from lifeapi_tpu.mpc import CostWeights, MPCProblem, soft, solver
@@ -104,6 +105,7 @@ def test_sqp_solver_improves():
     assert float(end.min()) < float(start.min())
 
 
+@pytest.mark.gpu
 def test_hard_score_batch_fused_matches_scan():
     problem = _toy_problem(horizon=4)
     key = jax.random.key(9)
@@ -111,12 +113,24 @@ def test_hard_score_batch_fused_matches_scan():
     from lifeapi_tpu.mpc.solver import hard_score_batch
 
     costs_scan, finals_scan = hard_score_batch(probs, problem, use_fused=False)
-    costs_fused, finals_fused = hard_score_batch(
-        probs, problem, use_fused=True,
-        interpret=jax.devices()[0].platform != "tpu",
-    )
-    assert np.allclose(np.asarray(costs_scan), np.asarray(costs_fused))
+    costs_fused, finals_fused = hard_score_batch(probs, problem, use_fused=True)
+    assert (np.asarray(costs_scan) == np.asarray(costs_fused)).all()
     assert (np.asarray(finals_scan) == np.asarray(finals_fused)).all()
+
+
+def test_hard_score_batch_engine_choice_on_cpu():
+    """use_fused=None takes the platform's engine (XLA on the CPU) and
+    equals use_fused=False; use_fused=True needs the CUDA kernel."""
+    problem = _toy_problem(horizon=4)
+    probs = jax.random.uniform(jax.random.key(9), (5, 4, 64, 64))
+    from lifeapi_tpu.mpc.solver import hard_score_batch
+
+    c0, f0 = hard_score_batch(probs, problem, use_fused=False)
+    c1, f1 = hard_score_batch(probs, problem)
+    assert (np.asarray(c0) == np.asarray(c1)).all()
+    assert (np.asarray(f0) == np.asarray(f1)).all()
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        hard_score_batch(probs, problem, use_fused=True)
 
 
 def test_stable_background_constraint():

@@ -17,7 +17,7 @@ def test_portfolio_reconstructs_eater():
     state = eater & ~hide
     res = C.complete_stable_portfolio(
         state, unknown, jax.random.key(0), replicas=32, frontier=4,
-        iters=24, fused=False,
+        iters=24,
     )
     assert res.found
     b = jnp.asarray(res.best)
@@ -58,7 +58,7 @@ def test_portfolio_reminimise_matches_dfs():
 
         res = C.complete_stable_portfolio(
             state, unknown, jax.random.key(100 + k), replicas=32,
-            frontier=4, iters=48, fused=False, reminimise=True,
+            frontier=4, iters=48, reminimise=True,
         )
         assert res.found
         b = jnp.asarray(res.best)
@@ -72,7 +72,6 @@ def test_portfolio_unsat_instance():
     none = jnp.zeros((64, 2), jnp.uint32)
     res = C.complete_stable_portfolio(
         lone, none, jax.random.key(1), replicas=16, frontier=4, iters=8,
-        fused=False,
     )
     assert not res.found
     assert res.found_fraction == 0.0

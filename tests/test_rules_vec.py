@@ -1,4 +1,4 @@
-"""The vectorized closed-form rules (stable/rules_vec.py — the TPU path)
+"""The vectorized closed-form rules (stable/rules_vec.py — the device path)
 must agree with the scalar rule functions (stable/options.py — the
 specification) on the full input grid."""
 

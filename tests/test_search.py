@@ -1,5 +1,6 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from lifeapi_tpu import search
 from lifeapi_tpu.core import board, rle, step
@@ -73,9 +74,10 @@ def test_all_orientations_finds_the_working_one():
     assert hit_orientations, "no orientation of the eater worked"
 
 
+@pytest.mark.gpu
 def test_catalyst_fused_matches_xla():
-    """The fused Pallas catalyst rollout (interpret mode on CPU) must be
-    bit-exact with the portable XLA scan engine on every result field."""
+    """The fused CUDA catalyst rollout must be bit-exact with the
+    portable XLA scan engine on every result field."""
     glider = board.move(rle.parse("bob$2bo$3o!"), 8, 8)
     eater = board.move(
         tr.transform(rle.parse("2b2o$bobo$bo$2o!"), T.Rotate270), 24, 24)
@@ -85,6 +87,44 @@ def test_catalyst_fused_matches_xla():
     rx = search.catalyst_search(glider, eater, offsets, horizon=64,
                                 engine="xla")
     rf = search.catalyst_search(glider, eater, offsets, horizon=64,
-                                engine="fused", interpret=True)
+                                engine="cuda")
     for f in ("interacted", "recovered", "reaction_changed", "final"):
         assert (np.asarray(getattr(rx, f)) == np.asarray(getattr(rf, f))).all(), f
+
+
+@pytest.mark.gpu
+def test_catalyst_fused_empty_and_odd_batches():
+    """Kernel edge cases: no placements at all, and a batch that does not
+    fill a thread block."""
+    glider = board.move(rle.parse("bob$2bo$3o!"), 8, 8)
+    eater = board.move(
+        tr.transform(rle.parse("2b2o$bobo$bo$2o!"), T.Rotate270), 24, 24)
+    for offsets in (jnp.zeros((0, 2), jnp.int32),
+                    jnp.asarray([[dx, 3] for dx in range(-4, 3)], jnp.int32)):
+        rx = search.catalyst_search(glider, eater, offsets, horizon=40,
+                                    engine="xla")
+        rf = search.catalyst_search(glider, eater, offsets, horizon=40,
+                                    engine="cuda")
+        for f in ("interacted", "recovered", "reaction_changed", "final"):
+            assert (np.asarray(getattr(rx, f))
+                    == np.asarray(getattr(rf, f))).all(), f
+
+
+def test_catalyst_engine_choice_on_cpu():
+    """The default engine on the CPU is XLA; asking for the CUDA kernel
+    there raises instead of falling back."""
+    glider = board.move(rle.parse("bob$2bo$3o!"), 8, 8)
+    eater = board.move(
+        tr.transform(rle.parse("2b2o$bobo$bo$2o!"), T.Rotate270), 24, 24)
+    offsets = jnp.asarray([[dx, dx] for dx in range(-3, 4)], jnp.int32)
+    rd = search.catalyst_search(glider, eater, offsets, horizon=32)
+    rx = search.catalyst_search(glider, eater, offsets, horizon=32,
+                                engine="xla")
+    for f in ("interacted", "recovered", "reaction_changed", "final"):
+        assert (np.asarray(getattr(rx, f)) == np.asarray(getattr(rd, f))).all(), f
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        search.catalyst_search(glider, eater, offsets, horizon=32,
+                               engine="cuda")
+    with pytest.raises(ValueError, match="engine"):
+        search.catalyst_search(glider, eater, offsets, horizon=32,
+                               engine="fused")

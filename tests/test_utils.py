@@ -78,8 +78,8 @@ def test_lane_ops_cse_dedups_and_dces():
 
 
 def test_step_kernel_has_no_cse_redundancy():
-    """The CSA step kernel's pre- and post-CSE counts agree (the basis of
-    its ~110%-of-issue-model roofline claim, BENCH_NOTES)."""
+    """The CSA step's pre- and post-CSE counts agree (its roofline
+    numerator needs no CSE correction); the propagate step's do not."""
     from lifeapi_tpu.utils import roofline as R
 
     assert (R.step_lane_ops_per_board()
